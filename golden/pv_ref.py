@@ -11,7 +11,7 @@ Hann^2 OLA at N/4 hop sums to 1.5).
 
 Everything here is deliberately simple, serial where the reference is serial
 (the psi recurrence is written as an explicit loop), and float64 throughout.
-The TPU framework under ``phase_vocoder_tpu/`` must match this model to
+The framework under ``phase_vocoder/`` must match this model to
 rel < 1e-4 at stretch in {0.5, 1.0, 2.0}, N=1024, Ra=256 (BASELINE.json:5-9).
 
 Do NOT "optimize" this file. It is a frozen fixture.
@@ -124,7 +124,7 @@ def phase_vocoder(
 
     # Synthesis phase: psi[0] = phi[0]; psi[i] = psi[i-1] + rs * IF[i-1].
     # Written as the explicit serial recurrence on purpose (this mirrors the
-    # reference's serial per-bin loop; the TPU build replaces it with a scan).
+    # reference's serial per-bin loop; the framework replaces it with a scan).
     psi = np.empty_like(phi)
     psi[0] = phi[0]
     for i in range(1, nf):
@@ -138,7 +138,7 @@ def phase_vocoder(
     # i*Rs*omega_k (an integer multiple of pi at these bins). This keeps
     # identity resynthesis exact and makes cross-implementation allclose
     # well-posed; it is the only intentional deviation from the naive
-    # textbook recurrence, mirrored by phase_vocoder_tpu/ops/phase.py.
+    # textbook recurrence, mirrored by phase_vocoder/ops/phase.py.
     frame_idx = np.arange(nf, dtype=np.float64)[:, None]
     real_bins = [0] + ([n // 2] if n % 2 == 0 else [])
     for kb in real_bins:

@@ -1,9 +1,9 @@
-// Native WAV (RIFF) reader/writer for the TPU phase-vocoder framework.
+// Native WAV (RIFF) reader/writer for the phase-vocoder framework.
 //
-// TPU-native counterpart of the reference's host-side C++ WAV handling
+// Counterpart of the reference's host-side C++ WAV handling
 // (reference component C2, SURVEY.md SS2.1: RIFF parse, PCM16<->float
 // convert). Exposed through a plain C ABI consumed via ctypes from
-// phase_vocoder_tpu/io/native.py — no pybind11 dependency.
+// phase_vocoder/io/native.py — no pybind11 dependency.
 //
 // Supported payloads: PCM16 (format 1), PCM32 (format 1), IEEE float32
 // (format 3), plus WAVE_FORMAT_EXTENSIBLE wrapping either. Multi-channel

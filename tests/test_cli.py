@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from phase_vocoder_tpu import cli
-from phase_vocoder_tpu.io.wav import read_wav, write_wav
-from phase_vocoder_tpu.parallel.chunked import batched_chunked_time_stretch
-from phase_vocoder_tpu import PvocConfig, make_mesh_2d, time_stretch
+from phase_vocoder import cli
+from phase_vocoder.io.wav import read_wav, write_wav
+from phase_vocoder.parallel.chunked import batched_chunked_time_stretch
+from phase_vocoder import PvocConfig, make_mesh_2d, time_stretch
 from tests.conftest import make_test_signal
 
 
@@ -77,38 +77,35 @@ def test_batched_chunked_2d_mesh():
         assert err < 5e-5, err
 
 
-def test_batched_chunked_2d_mesh_fused():
-    """DP x SP on the FUSED path: batched 2-D-grid Pallas kernels inside a
-    ('data','seq') shard_map — the full flagship program (VERDICT.md #4)."""
-    cfg = PvocConfig(fft_backend="pallas")
+def test_batched_chunked_2d_mesh_half_stretch():
+    """DP x SP at 0.5x: the q=2 hop ratio through the 2-D mesh program."""
     mesh = make_mesh_2d(2, 4)
     xs = np.stack([make_test_signal(4.0, seed=0), make_test_signal(4.0, seed=1)])
-    for stretch in (0.5, 2.0):
-        ys = np.asarray(batched_chunked_time_stretch(xs, stretch, cfg, mesh=mesh))
-        for i in range(2):
-            single = np.asarray(time_stretch(xs[i], stretch, cfg))
-            assert ys.shape[1] == len(single)
-            sl = slice(1024, len(single) - 1024)
-            err = np.max(np.abs(ys[i][sl] - single[sl])) / np.max(
-                np.abs(single[sl])
-            )
-            assert err < 5e-5, (stretch, err)
+    ys = np.asarray(batched_chunked_time_stretch(xs, 0.5, PvocConfig(), mesh=mesh))
+    for i in range(2):
+        single = np.asarray(time_stretch(xs[i], 0.5))
+        assert ys.shape[1] == len(single)
+        sl = slice(1024, len(single) - 1024)
+        err = np.max(np.abs(ys[i][sl] - single[sl])) / np.max(np.abs(single[sl]))
+        assert err < 5e-5, err
 
 
-def test_cli_stretch_checkpointed_fused(tmp_path, capsys):
-    """--checkpoint-dir with the pallas backend rides the fused streaming
-    checkpointer and matches the plain fused run bit-for-bit."""
+def test_cli_stretch_checkpointed(tmp_path):
+    """--checkpoint-dir rides the checkpointed streaming executor and
+    matches the plain streaming run bit for bit."""
+    from phase_vocoder.streaming import stream_time_stretch
+
     wav = str(tmp_path / "in8.wav")
     write_wav(wav, make_test_signal(8.0), 16000)
     out = str(tmp_path / "out.wav")
     ck = str(tmp_path / "ck")
     assert cli.main([
-        "stretch", wav, out, "--ratio", "2.0", "--fft-backend", "pallas",
-        "--checkpoint-dir", ck, "--segment-frames", "256", "--float32",
+        "stretch", wav, out, "--ratio", "2.0", "--checkpoint-dir", ck,
+        "--segment-frames", "256", "--float32",
     ]) == 0
     y, _ = read_wav(out)
     x, _ = read_wav(wav)
-    ref = np.asarray(time_stretch(x, 2.0, PvocConfig(fft_backend="pallas")))
+    ref = np.asarray(stream_time_stretch(x, 2.0, PvocConfig(), segment_frames=256))
     np.testing.assert_array_equal(y, ref.astype(np.float32))
 
 

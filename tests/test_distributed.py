@@ -4,9 +4,9 @@ Spawns TWO separate Python processes on localhost, each bootstrapping via
 jax.distributed.initialize (coordinator on a free TCP port) with 4 virtual
 CPU devices, forming one 8-device global mesh, and runs the sequence-
 parallel chunked-TSM program across the process boundary. This exercises
-the exact code path real N>=2-host TPU jobs use (parallel/distributed.py):
-the halo/carry collectives cross processes here the way they cross DCN on
-a pod — the compiled program is identical.
+the code path real N>=2-host jobs use (parallel/distributed.py): the
+halo/carry collectives cross processes here the way they cross hosts — the
+compiled program is identical.
 
 Opt-out: set PVOC_SKIP_DISTRIBUTED=1 (the test costs ~1-2 min of compile).
 """
@@ -84,7 +84,7 @@ def test_cli_chunked_multihost(tmp_path):
     import numpy as np
 
     sys.path.insert(0, _REPO)
-    from phase_vocoder_tpu.io.wav import read_wav, write_wav
+    from phase_vocoder.io.wav import read_wav, write_wav
 
     sr, seconds = 16000, 6.0
     g = np.random.default_rng(1)
@@ -96,7 +96,6 @@ def test_cli_chunked_multihost(tmp_path):
 
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
-    env["PVOC_PLATFORM"] = "cpu"
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -104,7 +103,7 @@ def test_cli_chunked_multihost(tmp_path):
     out_wavs = [tmp_path / f"out{i}.wav" for i in range(2)]
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "phase_vocoder_tpu.cli", "chunked",
+            [sys.executable, "-m", "phase_vocoder.cli", "chunked",
              str(in_wav), str(out_wavs[pid]), "--ratio", "2.0",
              "--coordinator", coord, "--num-processes", "2",
              "--process-id", str(pid)],
@@ -131,7 +130,7 @@ def test_cli_chunked_multihost(tmp_path):
     y, sr2 = read_wav(str(out_wavs[0]))
     assert sr2 == sr
 
-    from phase_vocoder_tpu import PvocConfig, pipeline
+    from phase_vocoder import PvocConfig, pipeline
 
     ref = np.asarray(pipeline.time_stretch(x, 2.0, PvocConfig()))
     m = min(len(ref), len(y))

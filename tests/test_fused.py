@@ -1,23 +1,18 @@
-"""Fused phasor-path tests (ops/pallas/fused.py) and blocked-scan tests.
+"""Golden gates of the stretch routes at awkward geometries, plus the
+blocked-scan unit test.
 
-The fused path is the TPU flagship: phasor-form TSM with zero
-transcendentals, in-kernel prefix scan, in-kernel OLA normalization. On CPU
-the kernels run in interpreter mode; the identical code compiles via Mosaic
-on the chip (verified on TPU v5e).
+These gates once exercised a fused single-kernel path; the route they now
+check is the plain XLA program every stretch and pitch shift takes
+(analysis -> compensated-pair phase scan -> synthesis), at the same
+stretches, hops and lengths, against the float64 golden model.
 """
 
 import numpy as np
 import pytest
 
 from golden import pv_ref
-from phase_vocoder_tpu import PvocConfig, time_stretch
-from phase_vocoder_tpu.ops import phase
-from phase_vocoder_tpu.ops.pallas.fused import (
-    fused_time_stretch,
-    phasor_scan,
-    phasor_supported,
-    stft_phasor_terms,
-)
+from phase_vocoder import PvocConfig, time_stretch
+from phase_vocoder.ops import phase
 from tests.conftest import make_test_signal
 
 N, RA = 1024, 256
@@ -36,50 +31,20 @@ def x32k():
     return make_test_signal(2.0).astype(np.float32)
 
 
-def test_phasor_supported_matrix():
-    assert phasor_supported(1024, 256, 512)  # k=2 (stretch 2.0)
-    assert phasor_supported(1024, 256, 256)  # k=1
-    assert phasor_supported(1024, 256, 128)  # k=1/2 (stretch 0.5)
-    assert phasor_supported(512, 64, 256)  # k=4
-    # Round 5: ANY synthesis hop with overlap >= 2 — general hops ride the
-    # ceil-segment fold OLA + angle-domain term path in the same kernel.
-    assert phasor_supported(1024, 256, 333)  # irreducible hop
-    assert phasor_supported(1024, 256, 384)  # k=3/2 (stretch 1.5)
-    assert phasor_supported(1024, 256, 171)  # -7 st, q=256
-    assert phasor_supported(1024, 256, 342)  # +5 st, k=171/128
-    assert not phasor_supported(1024, 256, 1024)  # no overlap
-    assert not phasor_supported(1024, 256, 513)  # overlap < 2
-    assert not phasor_supported(1024, 192, 256)  # Ra does not divide N
-
-
-def test_phasor_terms_supported_matrix():
-    from phase_vocoder_tpu.ops.pallas.fused import phasor_terms_supported
-
-    assert phasor_terms_supported(1024, 256, 384)  # k=3/2 (stretch 1.5)
-    assert phasor_terms_supported(1024, 256, 192)  # k=3/4 (-5 st)
-    assert phasor_terms_supported(1024, 256, 512)  # k=2
-    assert phasor_terms_supported(1024, 256, 64)  # k=1/4
-    assert phasor_terms_supported(1024, 256, 342)  # k=171/128 (round 5)
-    assert phasor_terms_supported(1024, 256, 171)  # q=256 (round 5)
-    assert not phasor_terms_supported(1024, 192, 256)  # Ra does not divide N
-
-
 @pytest.mark.parametrize("stretch", [0.5, 1.0, 2.0])
 def test_fused_vs_golden(stretch, x32k):
     """The headline gate: waveform allclose (<1e-4 rel) to the f64 golden
     model at every canonical stretch (BASELINE.json:5)."""
     ref = pv_ref.phase_vocoder(np.asarray(x32k, np.float64), stretch, N, RA)
-    rs = PvocConfig().synthesis_hop(stretch)
-    y = np.asarray(fused_time_stretch(x32k, N, RA, rs))
+    y = np.asarray(time_stretch(x32k, stretch))
     assert rel_err(y, ref) < 1e-4
 
 
 def test_fused_awkward_length():
-    """Frame count far from a tile multiple, including the OLA spill rows
-    (regression: the spill rows live in the main output when nf % tile != 0)."""
+    """Frame count far from any block multiple, including the OLA tail."""
     x = make_test_signal(2.3141).astype(np.float32)
     ref = pv_ref.phase_vocoder(np.asarray(x, np.float64), 2.0, N, RA)
-    y = np.asarray(fused_time_stretch(x, N, RA, 512))
+    y = np.asarray(time_stretch(x, 2.0))
     assert len(y) == len(ref)
     # interior strict, full range loose (edge normalization divides by
     # near-zero window energy — ill-conditioned in f32 for ANY backend)
@@ -91,35 +56,8 @@ def test_fused_integer_k4():
     """Integer hop ratios beyond 2 (k=4 at N=512, Ra=64)."""
     x = make_test_signal(1.0).astype(np.float32)
     ref = pv_ref.phase_vocoder(np.asarray(x, np.float64), 4.0, 512, 64)
-    y = np.asarray(fused_time_stretch(x, 512, 64, 256))
+    y = np.asarray(time_stretch(x, 4.0, PvocConfig(n_fft=512, hop=64)))
     assert rel_err(y, ref, edge=512) < 1e-4
-
-
-def test_time_stretch_routes_to_fused(x32k):
-    """cfg.fft_backend='pallas' end to end == matmul backend."""
-    a = np.asarray(time_stretch(x32k, 2.0, PvocConfig(fft_backend="pallas")))
-    b = np.asarray(time_stretch(x32k, 2.0, PvocConfig(fft_backend="matmul")))
-    # The two paths accumulate phase differently (phasor product vs wrapped
-    # angle scan); each is <1e-5 from golden, so 5e-5 between them.
-    assert rel_err(a, b) < 5e-5
-
-
-def test_phasor_scan_matches_angle_scan(x32k):
-    """Raw terms + phasor_scan == in-kernel scanned P (same math, two
-    execution strategies — the scan=False path feeds the chunked program)."""
-    import jax.numpy as jnp
-
-    rs = 512
-    mag, tre, tim, nf = stft_phasor_terms(x32k, N, RA, rs, scan=False)
-    pre, pim = phasor_scan(tre, tim)
-    mag2, qre, qim, _ = stft_phasor_terms(x32k, N, RA, rs, scan=True)
-    assert np.allclose(np.asarray(mag), np.asarray(mag2), atol=1e-6)
-    err = np.max(
-        np.hypot(
-            np.asarray(pre - qre, np.float64), np.asarray(pim - qim, np.float64)
-        )[:nf]
-    )
-    assert err < 1e-4
 
 
 def test_blocked_scan_matches_flat():
@@ -136,65 +74,12 @@ def test_blocked_scan_matches_flat():
         assert d.max() < 1e-5, (n, d.max())
 
 
-@pytest.mark.parametrize("stretch", [0.5, 2.0])
-def test_fused_chunked_matches_single_device(stretch):
-    """Sequence-parallel fused program (phasor boundary exchange + U(1)
-    prefix-product carry over the device axis) == single-device fused."""
-    import jax
-    from jax.sharding import Mesh
-
-    from phase_vocoder_tpu.parallel.chunked import chunked_time_stretch
-
-    x = make_test_signal(4.0)
-    cfg = PvocConfig(fft_backend="pallas")
-    mesh = Mesh(np.array(jax.devices()[:4]), ("seq",))
-    a = np.asarray(chunked_time_stretch(x, stretch, cfg, mesh=mesh))
-    b = np.asarray(time_stretch(x, stretch, cfg))
-    # XLA blocked scan (chunked) vs in-kernel scan (single device): same
-    # math, different reduction trees; each <1e-5 from golden.
-    assert rel_err(a, b) < 5e-5
-
-
-def test_fused_unit_modulus():
-    """Scanned P stays unit-modulus (renormalized combine)."""
-    x = make_test_signal(1.0).astype(np.float32)
-    mag, pre, pim, nf = stft_phasor_terms(x, N, RA, 512, scan=True)
-    mod = np.hypot(np.asarray(pre), np.asarray(pim))[:nf, : N // 2 + 1]
-    assert np.max(np.abs(mod - 1.0)) < 1e-5
-
-
-def test_pow_k_rational_matches_angles():
-    """_pow_k for k = p/q (q in {1,2,4}) equals e^{i k princarg(theta)}."""
-    import jax.numpy as jnp
-
-    from phase_vocoder_tpu.ops.pallas.fused import _pow_k
-
-    rng = np.random.default_rng(3)
-    theta = rng.uniform(-np.pi + 1e-6, np.pi, 4096)
-    z_re = jnp.asarray(np.cos(theta), jnp.float32)
-    z_im = jnp.asarray(np.sin(theta), jnp.float32)
-    for rs, ra in [(512, 256), (128, 256), (384, 256), (192, 256), (64, 256),
-                   (320, 256), (768, 256)]:
-        k = rs / ra
-        wre, wim = _pow_k(z_re, z_im, rs, ra)
-        want = np.exp(1j * k * theta)
-        got = np.asarray(wre, np.float64) + 1j * np.asarray(wim, np.float64)
-        err = np.max(np.abs(got - want))
-        assert err < 2e-6, (rs, ra, err)
-
-
 @pytest.mark.parametrize("stretch", [1.5, 0.75, 0.25])
 def test_phasor_general_stretch_vs_golden(stretch):
-    """Stretch ratios with rs not dividing N vs the golden model — stretch
-    1.5 is VERDICT r03 #7's requested coverage point. Since round 5 these
-    route through the single fused kernel (general-hop fold OLA); the
-    semi-fused path keeps its own direct gate below."""
-    from phase_vocoder_tpu import pipeline
-
+    """Stretch ratios with rs not dividing N (or below N/4) vs the golden
+    model, through time_stretch."""
     x = make_test_signal(4.0)
-    cfg = PvocConfig(fft_backend="pallas")
-    rs = cfg.synthesis_hop(stretch)
-    assert pipeline.fused_ok(cfg, rs)
+    cfg = PvocConfig()
     ref = pv_ref.phase_vocoder(np.asarray(x, np.float64), stretch, N, RA)
     y = np.asarray(time_stretch(x.astype(np.float32), stretch, cfg))
     assert len(y) == len(ref)
@@ -203,22 +88,18 @@ def test_phasor_general_stretch_vs_golden(stretch):
 
 @pytest.mark.parametrize("stretch", [1.5, 0.75])
 def test_semifused_phasor_general_path_vs_golden(stretch):
-    """The SEMI-fused path (phasor-term kernel + cart inverse-DFT kernel +
-    external general fold OLA), called directly — it remains the fallback
-    for overlap < 2 geometries and the chunked q>1 program's building
-    block, so it keeps its own golden gate."""
-    from phase_vocoder_tpu import pipeline
-
-    x = make_test_signal(4.0)
-    cfg = PvocConfig(fft_backend="pallas")
-    rs = cfg.synthesis_hop(stretch)
-    ref = pv_ref.phase_vocoder(np.asarray(x, np.float64), stretch, N, RA)
+    """The monolithic program called directly (analyze, polar stage,
+    synthesize), on the DFT-matmul backend, at general synthesis hops."""
     import jax.numpy as jnp
 
+    from phase_vocoder import pipeline
+
+    x = make_test_signal(4.0)
+    cfg = PvocConfig(fft_backend="matmul")
+    rs = cfg.synthesis_hop(stretch)
+    ref = pv_ref.phase_vocoder(np.asarray(x, np.float64), stretch, N, RA)
     y = np.asarray(
-        pipeline.phasor_general_stretch(
-            jnp.asarray(x, jnp.float32), cfg, rs
-        )
+        pipeline._time_stretch_jit(jnp.asarray(x, jnp.float32), cfg, rs)
     )
     assert len(y) == len(ref)
     assert rel_err(y, ref) < 1e-4
@@ -226,16 +107,12 @@ def test_semifused_phasor_general_path_vs_golden(stretch):
 
 @pytest.mark.parametrize("semitones", [-7.0, -5.0, 7.0])
 def test_pitch_general_hops_ride_fused_path(semitones):
-    """-7/-5/+7 st quantize to Rs=171/192/384 (q=256, 4, 2): since round 5
-    ALL of them ride the single fused kernel (angle-domain terms for
-    irreducible hops) and must hold the golden gate."""
-    from phase_vocoder_tpu import pipeline
+    """-7/-5/+7 st quantize to Rs=171/192/384 (q=256, 4, 2): general
+    synthesis hops plus the gather resampler, under the golden gate."""
+    from phase_vocoder import pipeline
 
     x = make_test_signal(4.0)
-    cfg = PvocConfig(fft_backend="pallas")
-    factor = 2.0 ** (semitones / 12.0)
-    rs = cfg.synthesis_hop(factor)
-    assert pipeline.fused_ok(cfg, rs)
+    cfg = PvocConfig()
     ref = pv_ref.pitch_shift(np.asarray(x, np.float64), semitones, N, RA)
     y = np.asarray(pipeline.pitch_shift(x.astype(np.float32), semitones, cfg))
     m = min(len(ref), len(y))
@@ -246,82 +123,13 @@ def test_pitch_general_hops_ride_fused_path(semitones):
     assert err < 1e-4, err
 
 
-def test_atan2_poly_matches_numpy():
-    """In-kernel atan2 polynomial (the Mosaic-safe lowering for general-q
-    hop ratios): < 4e-7 rad absolute vs float64 atan2, with the princarg
-    boundary convention (y=0, x<0 -> +pi)."""
-    import jax.numpy as jnp
-
-    from phase_vocoder_tpu.ops.pallas.fused import _atan2
-
-    rng = np.random.default_rng(11)
-    theta = rng.uniform(-np.pi, np.pi, 1 << 16)
-    y = np.sin(theta)
-    x = np.cos(theta)
-    got = np.asarray(
-        _atan2(jnp.asarray(y, jnp.float32), jnp.asarray(x, jnp.float32)),
-        np.float64,
-    )
-    want = np.arctan2(y, x)
-    assert np.max(np.abs(got - want)) < 4e-7
-    # Branch-point convention: golden princarg(pi) = pi.
-    edge = np.asarray(
-        _atan2(jnp.asarray([0.0], jnp.float32), jnp.asarray([-1.0], jnp.float32))
-    )
-    assert edge[0] > 3.0
-
-
-def test_pow_k_general_q_matches_angles():
-    """_pow_k angle-domain branch (irreducible q) == e^{i k princarg}."""
-    import jax.numpy as jnp
-
-    from phase_vocoder_tpu.ops.pallas.fused import _pow_k
-
-    rng = np.random.default_rng(5)
-    theta = rng.uniform(-np.pi + 1e-6, np.pi - 1e-6, 4096)
-    z_re = jnp.asarray(np.cos(theta), jnp.float32)
-    z_im = jnp.asarray(np.sin(theta), jnp.float32)
-    for rs, ra in [(171, 256), (342, 256), (305, 256), (333, 256)]:
-        k = rs / ra
-        wre, wim = _pow_k(z_re, z_im, rs, ra)
-        want = np.exp(1j * k * theta)
-        got = np.asarray(wre, np.float64) + 1j * np.asarray(wim, np.float64)
-        err = np.max(np.abs(got - want))
-        assert err < 3e-6, (rs, ra, err)
-
-
 @pytest.mark.parametrize("rs", [171, 342, 305])
 def test_fused_general_hop_vs_golden(rs):
-    """Irreducible synthesis hops through the SINGLE fused kernel
-    (ceil-segment fold OLA + angle-domain phasor terms, round 5) — the
-    geometry class that previously fell to the polar path at ~11x the
-    cost (VERDICT r04 missing #2)."""
+    """Irreducible synthesis hops (the non-octave pitch hops) through
+    time_stretch: the general fold OLA at hops that divide nothing."""
     x = make_test_signal(4.0).astype(np.float32)
     stretch = rs / RA
     ref = pv_ref.phase_vocoder(np.asarray(x, np.float64), stretch, N, RA)
-    y = np.asarray(fused_time_stretch(x, N, RA, rs))
+    y = np.asarray(time_stretch(x, stretch))
     assert len(y) == len(ref)
     assert rel_err(y, ref) < 1e-4
-
-
-@pytest.mark.parametrize("stretch", [2.0, 1.0])
-def test_fused1_chunked_single_kernel_matches_mono(stretch):
-    """Round-5 single-kernel sequence-parallel body (integer k): the whole
-    monolithic kernel inside each shard + anchor all_gather + OLA tail
-    ppermute == monolithic fused (VERDICT r04 #1)."""
-    import jax
-    from jax.sharding import Mesh
-
-    from phase_vocoder_tpu.parallel import chunked
-
-    x = make_test_signal(5.0)
-    cfg = PvocConfig(fft_backend="pallas")
-    rs = cfg.synthesis_hop(stretch)
-    assert chunked._fused1_ok(cfg, rs)
-    mesh = Mesh(np.array(jax.devices()[:8]), ("seq",))
-    a = np.asarray(
-        chunked.chunked_time_stretch(x, stretch, cfg, mesh=mesh, force=True)
-    )
-    b = np.asarray(time_stretch(x, stretch, cfg))
-    assert len(a) == len(b)
-    assert rel_err(a, b) < 5e-5

@@ -107,7 +107,7 @@ def test_pitch_shift_moves_tone():
 
 def test_psi_recurrence_equals_cumsum():
     """The psi recurrence is exactly phi[0] + cumsum(Rs*IF) — the structural
-    insight that makes the TPU associative-scan implementation valid."""
+    insight that makes the associative-scan implementation valid."""
     x = make_test_signal(0.5)
     X = pv_ref.stft(x, N, RA)
     phi = np.angle(X)

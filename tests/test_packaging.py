@@ -25,21 +25,21 @@ def _load_pyproject():
 
 def test_pyproject_declares_package_and_script():
     meta = _load_pyproject()
-    assert meta["project"]["name"] == "phase-vocoder-tpu"
-    assert meta["project"]["scripts"]["pvoc"] == "phase_vocoder_tpu.cli:main"
+    assert meta["project"]["name"] == "phase-vocoder"
+    assert meta["project"]["scripts"]["pvoc"] == "phase_vocoder.cli:main"
 
-    import phase_vocoder_tpu
+    import phase_vocoder
 
-    assert meta["project"]["version"] == phase_vocoder_tpu.__version__
+    assert meta["project"]["version"] == phase_vocoder.__version__
 
 
 def test_entry_point_target_is_callable():
-    from phase_vocoder_tpu import cli
+    from phase_vocoder import cli
 
     assert callable(cli.main)
     # argparse --help exits 0 via SystemExit.
     proc = subprocess.run(
-        [sys.executable, "-m", "phase_vocoder_tpu.cli", "--help"],
+        [sys.executable, "-m", "phase_vocoder.cli", "--help"],
         capture_output=True,
         text=True,
         timeout=120,

@@ -10,11 +10,11 @@ import pytest
 import jax.numpy as jnp
 
 from golden import pv_ref
-from phase_vocoder_tpu import PvocConfig, pitch_shift, time_stretch
-from phase_vocoder_tpu.ops import fft as fft_ops
-from phase_vocoder_tpu.ops import framing, phase
-from phase_vocoder_tpu.ops.resample import resample_linear
-from phase_vocoder_tpu.ops.window import hann_window
+from phase_vocoder import PvocConfig, pitch_shift, time_stretch
+from phase_vocoder.ops import fft as fft_ops
+from phase_vocoder.ops import framing, phase
+from phase_vocoder.ops.resample import resample_linear
+from phase_vocoder.ops.window import hann_window
 from tests.conftest import make_test_signal
 
 N, RA = 1024, 256
@@ -170,7 +170,7 @@ def test_resample_paths_match_gather_reference(rng):
     """The gather-free paths (rational strided slices, blocked
     strided-select) are sample-exact vs the per-element-gather reference
     across up/down/rational/irrational factors and edge cases."""
-    from phase_vocoder_tpu.ops import resample as rs
+    from phase_vocoder.ops import resample as rs
 
     x = rng.standard_normal(100_000).astype(np.float32)
     xj = jnp.asarray(x)
@@ -263,9 +263,9 @@ def test_deterministic_rerun(signal_1s):
 
 
 def test_resample_rational_matmul_matches_slices(rng):
-    """The MXU matmul formulation of the rational resampler == the strided-
+    """The matmul formulation of the rational resampler == the strided-
     slice oracle (exact for dyadic weights; <=2 ulp for q=3)."""
-    from phase_vocoder_tpu.ops import resample as rs
+    from phase_vocoder.ops import resample as rs
 
     x = jnp.asarray(rng.standard_normal(50_000).astype(np.float32))
     for p, q in [(2, 1), (1, 2), (1, 1), (3, 2), (3, 4), (1, 4), (8, 1), (4, 3)]:

@@ -1,12 +1,11 @@
 """Streaming segmented executor parity (compile-once any-length path)."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from golden import pv_ref
-from phase_vocoder_tpu import PvocConfig, time_stretch
-from phase_vocoder_tpu.streaming import stream_time_stretch
+from phase_vocoder import time_stretch
+from phase_vocoder.streaming import stream_time_stretch
 from tests.conftest import make_test_signal
 
 N = 1024
@@ -64,47 +63,3 @@ def test_stream_long_audio_stability():
     y = np.asarray(stream_time_stretch(x, 2.0, segment_frames=256))
     y_single = np.asarray(time_stretch(x, 2.0))
     assert interior_rel_err(y, y_single) < 5e-5
-
-
-# ---------------------------------------------------------------------------
-# Fused streaming executor (single-kernel segments, phasor carry)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("stretch", [0.5, 1.0, 2.0])
-def test_fused_stream_bitwise_matches_monolithic(stretch):
-    """The fused streaming executor round-trips EXACTLY the monolithic
-    kernel's VMEM scratch state, so outputs are bit-identical."""
-    from phase_vocoder_tpu.ops.pallas.fused import fused_time_stretch
-    from phase_vocoder_tpu.streaming import fused_stream_time_stretch
-
-    cfg = PvocConfig(fft_backend="pallas")
-    rs = cfg.synthesis_hop(stretch)
-    x = make_test_signal(10.0).astype(np.float32)
-    mono = np.asarray(fused_time_stretch(jnp.asarray(x), N, 256, rs))
-    strm = np.asarray(
-        fused_stream_time_stretch(x, stretch, cfg, segment_frames=256)
-    )
-    np.testing.assert_array_equal(strm, mono)
-
-
-def test_fused_stream_vs_golden():
-    from phase_vocoder_tpu.streaming import fused_stream_time_stretch
-
-    cfg = PvocConfig(fft_backend="pallas")
-    x = make_test_signal(6.0)
-    y = np.asarray(
-        fused_stream_time_stretch(x.astype(np.float32), 2.0, cfg,
-                                  segment_frames=256)
-    )
-    ref = pv_ref.phase_vocoder(x, 2.0, N, 256)
-    assert len(y) == len(ref)
-    assert interior_rel_err(y, ref) < 1e-4
-
-
-def test_fused_stream_rejects_polar_geometry():
-    from phase_vocoder_tpu.streaming import fused_stream_time_stretch
-
-    with pytest.raises(ValueError, match="fused"):
-        fused_stream_time_stretch(
-            np.zeros(16000, np.float32), 2.0, PvocConfig(fft_backend="matmul")
-        )

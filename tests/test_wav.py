@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from phase_vocoder_tpu.io import native, wav
+from phase_vocoder.io import native, wav
 from tests.conftest import make_test_signal
 
 
